@@ -1,242 +1,207 @@
 #!/usr/bin/env python
-"""Headline benchmark: rays/sec/chip on the BASELINE workload.
+"""Benchmark of the renderer on one GPU: ms per frame, in turns.
 
-Workload (BASELINE.md, driver config 3 forward): 256^3 density grid,
-1920x1080 image, 512 steps/ray, 256-texel RGBA transfer function, early
-ray termination on.  The reference app publishes no numbers
-(/root/reference/README.md:1-5); its implied workload is 360 steps/pixel
-at viewport size (res/shaders/volume.frag:29-31) with no early
-termination.
+Workload (BASELINE.md config 3): 256^3 synthetic sphere, 1920x1080 image,
+512 steps per ray, 256-texel RGBA transfer function (alpha ramp^2),
+early ray termination on.  ``--grad`` adds forward + backward
+(``value_and_grad`` w.r.t. the grid and the TF table), the inner loop of
+configs 3 and 4.
 
-Prints ONE JSON line:
-  {"metric": ..., "value": rays/s, "unit": "rays/s", "vs_baseline": R}
-where ``vs_baseline`` is the speedup of the flagship marcher over the
-naive pure-JAX oracle marcher (the faithful port of the reference's
-shader math) on the same chip and workload — i.e. how much the TPU-native
-design buys over a line-for-line translation.
+Every method in ``--methods`` (default: the production method, then the
+fused XLA marcher) is compiled first, then timed in turns — round-robin
+over ``--iters`` rounds in one process — so all see the same card state.
+Each forward is checked against the oracle marcher with early termination
+off (max abs RGBA error), each gradient against the fused method's.
 
-Usage: python bench.py [--quick] [--method slab|blocked|fused|oracle]
-       [--slab-mode exact|fast]
+Prints the device (platform, kind, count, the card's name and power
+limit) on ``#`` lines, then ONE JSON line whose ``value`` is the first
+method's median ms per frame.  Exits non-zero without a GPU: a CPU time
+is not a number for the card.
 
-The default (slab, fast) runs the production Pallas kernel with bf16x3
-matmuls: max error vs the exact path ~1e-3 — under half an 8-bit display
-quantum, i.e. below the reference's own RGBA8 TF quantization
-(offscreen_pass.cpp:1076).  ``--slab-mode exact`` is bit-comparable to
-the XLA marchers (~2e-6).
+Usage: python bench.py [--methods auto fused blocked] [--grad]
+       [--grid N] [--iters N] [--ray-chunks K]
 """
 
 import argparse
 import json
-import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      "/root/.cache/jax_compcache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 
-def build(method, settings, grid_n, tf_n=256, slab_mode="exact"):
-    from volumetric_renderer_tpu.data.volume import Volume
-    from volumetric_renderer_tpu.render.api import render
-    from volumetric_renderer_tpu.scene.camera import OrbitCamera
-    from volumetric_renderer_tpu.transfer.gradient import Gradient
+def scene(grid_n, tf_n=256):
+    import jax.numpy as jnp
+
+    from volumetric_renderer.data.volume import Volume
+    from volumetric_renderer.scene.camera import OrbitCamera
+    from volumetric_renderer.transfer.gradient import Gradient
 
     vol = Volume.synthetic_sphere(grid_n).as_jax()
     tf = jnp.asarray(Gradient.grayscale_ramp().discretize(tf_n))
     # realistic opacity ramp: opaque centers terminate rays early
     tf = tf.at[:, 3].set(jnp.linspace(0.0, 1.0, tf_n) ** 2)
     cam = OrbitCamera.from_angles(yaw_deg=30.0, pitch_deg=20.0)
-
-    fn = jax.jit(lambda v, t: render(v, t, cam, settings, method=method,
-                                     slab_mode=slab_mode))
-    return fn, vol, tf
+    return vol, tf, cam
 
 
-def time_renders(fn, vol, tf, iters):
-    out = fn(vol, tf)            # compile + warmup
-    jax.block_until_ready(out)
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        jax.block_until_ready(fn(vol, tf))
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times))
+def build(method, settings, cam, chunks):
+    """``fwd(vol, tf)`` and ``grad(vol, tf) -> (loss, gvol, gtf)`` through
+    ``method``'s marcher; the image splits into ``chunks`` row bands
+    whose losses and gradients are summed (ray minibatching)."""
+    import jax
+    import jax.numpy as jnp
 
+    from volumetric_renderer.render.api import make_marcher
+    from volumetric_renderer.scene.camera import ray_grid
 
-def bench_grad(args, settings, grid_n, h, w, steps):
-    """Training-path benchmark: fwd and fwd+bwd wall time through the
-    production kernel (slab forward + Pallas slab backward, grid + TF
-    gradients — BASELINE configs 3-4 inner loop).  One JSON line with
-    fwd_ms / fwd_bwd_ms sidecar keys."""
-    from volumetric_renderer_tpu.data.volume import Volume
-    from volumetric_renderer_tpu.kernels.slab import (
-        choose_axis_from_camera, make_slab_marcher,
-    )
-    from volumetric_renderer_tpu.scene.camera import OrbitCamera, ray_grid
-    from volumetric_renderer_tpu.transfer.gradient import Gradient
-
-    tf_n = 256
-    vol = Volume.synthetic_sphere(grid_n).as_jax()
-    tf = jnp.asarray(Gradient.grayscale_ramp().discretize(tf_n))
-    tf = tf.at[:, 3].set(jnp.linspace(0.0, 1.0, tf_n) ** 2)
-    cam = OrbitCamera.from_angles(yaw_deg=30.0, pitch_deg=20.0)
-    axis, reverse = choose_axis_from_camera(cam)
-    interpret = jax.default_backend() != "tpu"
-
-    # Ray-chunked training step: K row bands per step, gradients
-    # accumulated across one jitted band executable (ray minibatching —
-    # also keeps each device call within hosted-TPU per-call deadlines;
-    # a full 1080p 512^3 fwd+bwd in one call is ~80 s).
-    chunks = args.ray_chunks
-    if chunks == 0:
-        chunks = 4 if (grid_n >= 512 and not interpret) else 1
-    if h % chunks:
-        raise SystemExit(f"--ray-chunks {chunks} must divide height {h}")
-    hc = h // chunks
-
-    marcher = make_slab_marcher(
-        steps, settings.step_size, settings.early_termination,
-        settings.termination_eps, tuple(vol.shape), tf_n, hc, w,
-        axis=axis, reverse=reverse, mode=args.slab_mode,
-        interpret=interpret, bwd="slab", bwd_mode=args.bwd_mode)
+    h, w = settings.height, settings.width
+    marcher = make_marcher(method, settings)
     origin, dirs = ray_grid(cam, h, w)
     origin = origin + 0.5
-    dirs_c = [dirs[i * hc:(i + 1) * hc] for i in range(chunks)]
     scal = (jnp.float32(0.0), jnp.float32(1.0), jnp.zeros(3), jnp.ones(3))
+    hc = h // chunks
+    bands = [dirs[i * hc:(i + 1) * hc] for i in range(chunks)]
 
     fwd1 = jax.jit(lambda v, t, d: marcher(v, t, origin, d, *scal))
     grad1 = jax.jit(jax.value_and_grad(
-        lambda v, t, d: jnp.sum(marcher(v, t, origin, d, *scal) ** 2),
-        argnums=(0, 1)))
+        lambda v, t, d: jnp.sum(marcher(v, t, origin, d, *scal) ** 2)
+        / (h * w), argnums=(0, 1)))
 
     def fwd(v, t):
-        return [fwd1(v, t, d) for d in dirs_c]
+        return jnp.concatenate([fwd1(v, t, d) for d in bands])
 
     def grad(v, t):
-        # loss = mean over the full image; grads accumulate across bands
-        out = [grad1(v, t, d) for d in dirs_c]
-        return out[-1]
+        loss, gv, gt = 0.0, 0.0, 0.0
+        for d in bands:
+            lb, (gvb, gtb) = grad1(v, t, d)
+            loss, gv, gt = loss + lb, gv + gvb, gt + gtb
+        return loss, gv, gt
 
-    def timeit(f):
-        jax.block_until_ready(f(vol, tf))
-        ts = []
-        for _ in range(args.iters):
-            t0 = time.perf_counter()
-            jax.block_until_ready(f(vol, tf))
-            ts.append(time.perf_counter() - t0)
-        return float(np.median(ts))
+    return fwd, grad
 
-    t_fwd = timeit(fwd)
-    t_fb = timeit(grad)
-    rays = h * w
-    print(f"# fwd {t_fwd*1e3:.1f} ms, fwd+bwd {t_fb*1e3:.1f} ms "
-          f"(bwd/fwd = {(t_fb-t_fwd)/t_fwd:.2f}x) -> "
-          f"{rays/t_fb:,.0f} train rays/s", file=sys.stderr)
-    print(json.dumps({
-        "metric": f"train_rays_per_sec_per_chip_{grid_n}cubed_"
-                  f"{w}x{h}_{steps}steps",
-        "value": rays / t_fb,
-        "unit": "rays/s",
-        "vs_baseline": t_fb / t_fwd,   # fwd+bwd cost in forwards
-        "fwd_ms": round(t_fwd * 1e3, 1),
-        "fwd_bwd_ms": round(t_fb * 1e3, 1),
-    }))
+
+def timed_once(fn, *args):
+    import jax
+
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(fn(*args))
+    return time.perf_counter() - t0, out
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--quick", action="store_true",
-                    help="small workload for local iteration")
-    ap.add_argument("--method", default="slab",
-                    choices=["slab", "blocked", "fused", "oracle"])
-    ap.add_argument("--slab-mode", default="fast", choices=["exact", "fast"],
-                    help="slab kernel matmul precision (fast: bf16x3, "
-                         "error < half an 8-bit display quantum)")
-    ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--no-baseline", action="store_true",
-                    help="skip the oracle baseline measurement")
-    ap.add_argument("--grid", type=int, default=256,
-                    help="volume resolution (512 = BASELINE config-5 "
-                         "scale: the 512 MiB grid streams through VMEM "
-                         "in z-slabs)")
-    ap.add_argument("--bwd-mode", default="high",
-                    choices=["exact", "high", "train", "fast"],
-                    help="backward matmul precision (with --grad): "
-                         "exact=bf16x6, high=density-exact + bf16x3 "
-                         "gradient matmuls (parity 5.8e-5), train="
-                         "density bf16x3 + bf16 gradient matmuls "
-                         "(-28% step time; cosine 0.996 vs exact, "
-                         "mean rel err 4e-2), fast=bf16 (~7e-2)")
-    ap.add_argument("--ray-chunks", type=int, default=0,
-                    help="with --grad: split the image into K row bands "
-                         "per training step (gradient accumulation; 0 = "
-                         "auto: 1, or 4 at 512^3 where one full-image "
-                         "fwd+bwd call exceeds hosted-TPU deadlines)")
+    ap.add_argument("--methods", nargs="+", default=None,
+                    help="marchers to time in turns (default: the "
+                         "production method, then fused)")
     ap.add_argument("--grad", action="store_true",
-                    help="benchmark the training path instead: "
-                         "value_and_grad through the slab forward + "
-                         "Pallas slab backward (grid+TF gradients); "
-                         "emits fwd_ms / fwd_bwd_ms / train rays/s")
+                    help="also time forward + backward (grid + TF grads)")
+    ap.add_argument("--grid", type=int, default=256)
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--ray-chunks", type=int, default=1,
+                    help="split the image into K row bands per step, "
+                         "gradients summed over bands")
     args = ap.parse_args()
 
-    from volumetric_renderer_tpu.utils.config import RenderSettings
+    from volumetric_renderer.utils.env import (
+        enable_compile_cache, gpu_name_and_power_limit,
+    )
 
-    if args.quick:
-        h, w, steps, grid_n = 256, 256, 128, 64
-    else:
-        h, w, steps, grid_n = 1080, 1920, 512, args.grid
+    card = gpu_name_and_power_limit()
+    enable_compile_cache()
 
+    import jax
+    import jax.numpy as jnp
+
+    from volumetric_renderer.core.marcher import march_rays
+    from volumetric_renderer.render.api import production_method
+    from volumetric_renderer.scene.camera import ray_grid
+    from volumetric_renderer.utils.config import RenderSettings
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench.py measures the GPU; JAX found {dev.platform!r}")
+    print(f"# platform={dev.platform} device_kind={dev.device_kind} "
+          f"count={len(jax.devices())}")
+    print(f"# card (name, power limit): {card}")
+
+    h, w, steps, grid_n = 1080, 1920, 512, args.grid
+    if h % args.ray_chunks:
+        sys.exit(f"--ray-chunks {args.ray_chunks} must divide {h}")
     settings = RenderSettings(height=h, width=w, step_size=1.8 / steps,
                               early_termination=True)
-    dev = jax.devices()[0]
-    print(f"# device={dev.device_kind} platform={dev.platform} "
-          f"workload={grid_n}^3 grid, {w}x{h}, {steps} steps, "
-          f"method={args.method}{' (grad)' if args.grad else ''}",
-          file=sys.stderr)
+    methods = [production_method() if m == "auto" else m
+               for m in args.methods or ["auto", "fused"]]
+    methods = list(dict.fromkeys(methods))
+    vol, tf, cam = scene(grid_n)
+    print(f"# workload: {grid_n}^3 sphere, {w}x{h}, {steps} steps, ET on; "
+          f"methods {methods}", file=sys.stderr)
 
+    # reference: the oracle with ET off — a fixed trip count, so the bound
+    # is f32 rounding in another order (with ET on, a ray whose
+    # transmittance lands within rounding of the threshold can stop one
+    # step apart, an error up to the threshold itself)
+    origin, dirs = ray_grid(cam, h, w)
+    ref = jax.jit(lambda v, t: march_rays(
+        v, t, origin + 0.5, dirs, density_min=0.0, density_max=1.0,
+        slice_min=jnp.zeros(3), slice_max=jnp.ones(3), num_steps=steps,
+        step_size=settings.step_size))(vol, tf)
+    off = settings.replace(early_termination=False)
+
+    res, fns, grads = {}, {}, {}
+    for m in methods:
+        fwd, grad = build(m, settings, cam, args.ray_chunks)
+        fwd_off, _ = build(m, off, cam, 1)
+        t_c, _ = timed_once(fwd, vol, tf)
+        err = float(jnp.abs(fwd_off(vol, tf) - ref).max())
+        res[m] = dict(fwd_first_call_s=t_c,
+                      max_abs_err_vs_oracle_et_off=err, fwd_ms=[])
+        fns[m] = (fwd, grad)
+        print(f"# {m}: first call {t_c:.1f} s, max abs err vs oracle "
+              f"(ET off) {err:.3e}", file=sys.stderr)
+        if args.grad:
+            t_c, grads[m] = timed_once(grad, vol, tf)
+            res[m].update(fwd_bwd_first_call_s=t_c, fwd_bwd_ms=[])
+    del ref
+
+    for _ in range(args.iters):
+        for m in methods:
+            res[m]["fwd_ms"].append(timed_once(fns[m][0], vol, tf)[0] * 1e3)
     if args.grad:
-        bench_grad(args, settings, grid_n, h, w, steps)
-        return
+        for _ in range(args.iters):
+            for m in methods:
+                res[m]["fwd_bwd_ms"].append(
+                    timed_once(fns[m][1], vol, tf)[0] * 1e3)
+        if "fused" in grads:
+            for m in methods:
+                res[m]["grad_rel_err_vs_fused"] = [
+                    float(jnp.abs(a - b).max() / jnp.abs(b).max())
+                    for a, b in zip(grads[m][1:], grads["fused"][1:])]
 
-    fn, vol, tf = build(args.method, settings, grid_n,
-                        slab_mode=args.slab_mode)
-    t_render = time_renders(fn, vol, tf, args.iters)
-    rays = h * w
-    rays_per_s = rays / t_render
-    print(f"# flagship: {t_render*1e3:.1f} ms/frame -> "
-          f"{rays_per_s:,.0f} rays/s", file=sys.stderr)
+    for m in methods:
+        r = res[m]
+        r["fwd_ms_median"] = float(np.median(r["fwd_ms"]))
+        line = f"# {m}: fwd {r['fwd_ms_median']:.3f} ms"
+        if args.grad:
+            r["fwd_bwd_ms_median"] = float(np.median(r["fwd_bwd_ms"]))
+            line += f", fwd+bwd {r['fwd_bwd_ms_median']:.3f} ms"
+        print(line, file=sys.stderr)
 
-    if args.no_baseline:
-        ratio = 1.0
-    else:
-        # Oracle = faithful pure-JAX port of the reference shader math
-        # (volume.frag:21-51) with plain lax.scan and no custom anything.
-        # Measured on a row-subsampled image (rays/s normalizes per ray).
-        bh = max(64, h // 8)
-        bsettings = settings.replace(height=bh)
-        bfn, _, _ = build("oracle", bsettings, grid_n)
-        t_base = time_renders(bfn, vol, tf, args.iters)
-        base_rays_per_s = (bh * w) / t_base
-        ratio = rays_per_s / base_rays_per_s
-        print(f"# oracle baseline ({bh}x{w}): {t_base*1e3:.1f} ms -> "
-              f"{base_rays_per_s:,.0f} rays/s", file=sys.stderr)
-
-    out = {
-        "metric": f"rays_per_sec_per_chip_{grid_n}cubed_{w}x{h}_{steps}steps",
-        "value": rays_per_s,
-        "unit": "rays/s",
-        "vs_baseline": ratio,
-    }
-    if grid_n >= 512:
-        # config-5 scale sidecar: replication headroom arithmetic
-        hbm_gib = grid_n ** 3 * 4 / 2 ** 30
-        out["grid_bytes_gib"] = round(hbm_gib, 3)
-    print(json.dumps(out))
+    first = res[methods[0]]
+    key = "fwd_bwd_ms_median" if args.grad else "fwd_ms_median"
+    print(json.dumps({
+        "metric": f"{'fwd_bwd' if args.grad else 'fwd'}_ms_per_frame_"
+                  f"{grid_n}cubed_{w}x{h}_{steps}steps",
+        "value": first[key],
+        "unit": "ms",
+        "method": methods[0],
+        "rays_per_s": h * w / (first[key] / 1e3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "card": card,
+        "samples_per_method": args.iters,
+        "methods": res,
+    }))
 
 
 if __name__ == "__main__":

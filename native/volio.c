@@ -1,6 +1,6 @@
 /* volio — native decode hot path for the volume data layer.
  *
- * TPU-native counterpart of the reference's native C loader: the reference
+ * Counterpart of the reference's native C loader: the reference
  * links the vendored NrrdIO C library and widens every scalar type to
  * float32 in C++ (src/data/nrrd_file_parser.cpp:49-77, convert<T>).  Here
  * the format/header logic lives in Python (data/nrrd.py) and the bulk

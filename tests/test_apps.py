@@ -9,10 +9,10 @@ import numpy as np
 import optax
 import pytest
 
-from volumetric_renderer_tpu.utils.checkpoint import (
+from volumetric_renderer.utils.checkpoint import (
     latest_checkpoint, load_checkpoint, save_checkpoint,
 )
-from volumetric_renderer_tpu.utils.metrics import PhaseTimers, ThroughputMeter
+from volumetric_renderer.utils.metrics import PhaseTimers, ThroughputMeter
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -60,7 +60,7 @@ def test_phase_timers():
 
 
 def test_render_cli_synthetic(tmp_path):
-    from volumetric_renderer_tpu.apps.render_cli import main
+    from volumetric_renderer.apps.render_cli import main
     out = str(tmp_path / "r.png")
     npy = str(tmp_path / "r.npy")
     main(["x", "--synthetic", "--size", "48x32", "--steps", "24",
@@ -73,7 +73,7 @@ def test_render_cli_synthetic(tmp_path):
 
 
 def test_render_cli_tf_json(tmp_path):
-    from volumetric_renderer_tpu.apps.render_cli import main
+    from volumetric_renderer.apps.render_cli import main
     tf_file = tmp_path / "tf.json"
     tf_file.write_text(json.dumps({
         "color_markers": [[0.0, 0.0, 0.0, 1.0], [1.0, 1.0, 0.5, 0.0]],
@@ -86,7 +86,7 @@ def test_render_cli_tf_json(tmp_path):
 
 
 def test_turntable_gif(tmp_path):
-    from volumetric_renderer_tpu.apps.turntable import main
+    from volumetric_renderer.apps.turntable import main
     out = str(tmp_path / "o.gif")
     main(["--synthetic", "--frames", "3", "--size", "32x32",
           "--steps", "16", "--out", out])
@@ -95,7 +95,7 @@ def test_turntable_gif(tmp_path):
 
 @pytest.mark.slow
 def test_optimize_invert_smoke(tmp_path):
-    from volumetric_renderer_tpu.apps.optimize import main
+    from volumetric_renderer.apps.optimize import main
     ck = str(tmp_path / "ck")
     out = str(tmp_path / "vol.npy")
     main(["invert", "--grid", "8", "--size", "24x24", "--march-steps", "12",
@@ -111,7 +111,7 @@ def test_optimize_invert_smoke(tmp_path):
 
 @pytest.mark.slow
 def test_optimize_tf_fit_smoke(tmp_path):
-    from volumetric_renderer_tpu.apps.optimize import main
+    from volumetric_renderer.apps.optimize import main
     out = str(tmp_path / "tf.npy")
     main(["tf-fit", "--grid", "8", "--size", "24x24", "--march-steps", "12",
           "--views", "2", "--steps-opt", "4", "--tf-resolution", "32",
@@ -120,7 +120,7 @@ def test_optimize_tf_fit_smoke(tmp_path):
 
 
 def test_benchmark_harness(capsys):
-    from volumetric_renderer_tpu.apps.benchmark import main
+    from volumetric_renderer.apps.benchmark import main
     main(["--size", "32x32", "--steps", "12", "--grid", "8", "--iters", "1"])
     data = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert data["scaling"][0]["devices"] == 1
@@ -128,32 +128,21 @@ def test_benchmark_harness(capsys):
 
 
 @pytest.mark.slow
+@pytest.mark.gpu
 def test_optimize_slab_method_smoke(tmp_path):
-    """Config-4 loop through the production kernel (interpret on CPU)."""
-    from volumetric_renderer_tpu.apps.optimize import main
+    """Config-4 loop through the GPU production kernel, compiled."""
+    from volumetric_renderer.apps.optimize import main
     out = str(tmp_path / "vol.npy")
     main(["invert", "--grid", "8", "--size", "24x24", "--march-steps", "12",
           "--views", "2", "--steps-opt", "3", "--tf-resolution", "32",
-          "--method", "slab", "--out", out])
-    assert os.path.exists(out)
-
-
-@pytest.mark.slow
-def test_optimize_depth_parallel_smoke(tmp_path):
-    """Grid inversion with the grid + moments depth-sharded over the
-    8-device mesh (the >=1024^3 growth path, exercised end-to-end)."""
-    from volumetric_renderer_tpu.apps.optimize import main
-    out = str(tmp_path / "vol.npy")
-    main(["invert", "--grid", "16", "--size", "24x24", "--march-steps",
-          "12", "--views", "2", "--steps-opt", "3", "--tf-resolution",
-          "32", "--parallel", "depth", "--out", out])
+          "--method", "march", "--out", out])
     assert os.path.exists(out)
 
 
 def test_ablation_harness(capsys, monkeypatch):
     """Early-termination ablation produces speedup ratios (tiny shapes)."""
-    from volumetric_renderer_tpu.apps import ablation
-    from volumetric_renderer_tpu import models
+    from volumetric_renderer.apps import ablation
+    from volumetric_renderer import models
 
     # shrink the config-2 workload for CI: small phantom, image, steps
     orig = models.head_phantom
@@ -169,8 +158,8 @@ def test_viewer_state_machine():
     """Headless viewer logic: drag orbits (sensitivity 0.25 inside
     OrbitCamera), scroll zooms with the reference radius clamp, reset
     restores; every event triggers exactly one re-render."""
-    from volumetric_renderer_tpu.apps.viewer import ViewerState
-    from volumetric_renderer_tpu.scene.camera import OrbitCamera
+    from volumetric_renderer.apps.viewer import ViewerState
+    from volumetric_renderer.scene.camera import OrbitCamera
 
     calls = []
 
@@ -210,8 +199,8 @@ def test_viewer_cursor_wrap_around():
     cursor warps to the opposite edge, the motion event after the warp
     is ignored (its delta would be the warp jump), and subsequent drags
     keep rotating from the warped position."""
-    from volumetric_renderer_tpu.apps.viewer import ViewerState
-    from volumetric_renderer_tpu.scene.camera import OrbitCamera
+    from volumetric_renderer.apps.viewer import ViewerState
+    from volumetric_renderer.scene.camera import OrbitCamera
 
     warps = []
     cam0 = OrbitCamera.from_angles(yaw_deg=0.0, pitch_deg=0.0)

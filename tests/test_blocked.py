@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volumetric_renderer_tpu.core.blocked import make_blocked_marcher
-from volumetric_renderer_tpu.core.fused import make_fused_marcher
-from volumetric_renderer_tpu.data.volume import Volume
-from volumetric_renderer_tpu.scene.camera import OrbitCamera, ray_grid
-from volumetric_renderer_tpu.transfer.gradient import Gradient
+from volumetric_renderer.core.blocked import make_blocked_marcher
+from volumetric_renderer.core.fused import make_fused_marcher
+from volumetric_renderer.data.volume import Volume
+from volumetric_renderer.scene.camera import OrbitCamera, ray_grid
+from volumetric_renderer.transfer.gradient import Gradient
 
 NUM_STEPS, STEP = 48, 0.035
 

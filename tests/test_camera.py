@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from tests.reference_marcher import RefCamera, ref_projection, ref_rays
+from reference_marcher import RefCamera, ref_projection, ref_rays
 
-from volumetric_renderer_tpu.scene.camera import (
+from volumetric_renderer.scene.camera import (
     OrbitCamera,
     coordinate_conversion,
     perspective_rh_zo,

@@ -7,16 +7,16 @@ import os
 import numpy as np
 import pytest
 
-from volumetric_renderer_tpu.data import _native
-from volumetric_renderer_tpu.data.csv_stack import CsvParseError, read_csv_stack
-from volumetric_renderer_tpu.data.importer import VolumeImportError, import_volume
-from volumetric_renderer_tpu.data.nrrd import (
+from volumetric_renderer.data import _native
+from volumetric_renderer.data.csv_stack import CsvParseError, read_csv_stack
+from volumetric_renderer.data.importer import VolumeImportError, import_volume
+from volumetric_renderer.data.nrrd import (
     NrrdError,
     read_nrrd,
     read_nrrd_raw,
     write_nrrd,
 )
-from volumetric_renderer_tpu.data.volume import Volume
+from volumetric_renderer.data.volume import Volume
 
 DTYPES = ["int8", "uint8", "int16", "uint16", "int32", "uint32",
           "int64", "uint64", "float32", "float64"]

@@ -13,10 +13,10 @@ import zlib
 import numpy as np
 import pytest
 
-from volumetric_renderer_tpu.data.formats import (
-    read_png_image, read_pnm_image, read_vtk,
+from volumetric_renderer.data.formats import (
+    read_png_image, read_pnm_image, read_vtk, write_png_rgb,
 )
-from volumetric_renderer_tpu.data.importer import (
+from volumetric_renderer.data.importer import (
     VolumeImportError, import_volume,
 )
 
@@ -215,3 +215,17 @@ def test_import_volume_dispatch(tmp_path):
     (tmp_path / "s2.pgm").write_bytes(b"P5\n3 1\n255\n" + bytes(3))
     with pytest.raises(VolumeImportError):
         import_volume([str(tmp_path / "s0.pgm"), str(tmp_path / "s2.pgm")])
+
+
+def test_write_png_rgb_roundtrip(tmp_path):
+    """The stdlib PNG writer (render CLI output) reads back exactly
+    through the PNG reader's luminance conversion."""
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 256, (5, 7, 3), dtype=np.uint8)
+    p = tmp_path / "w.png"
+    write_png_rgb(str(p), rgb)
+    want = (rgb.astype(np.float32) / 255.0 * np.asarray(
+        [0.2126, 0.7152, 0.0722], np.float32)).sum(axis=-1)
+    np.testing.assert_allclose(read_png_image(str(p)), want, atol=1e-6)
+    with pytest.raises(ValueError):
+        write_png_rgb(str(p), rgb[..., :2])

@@ -11,13 +11,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volumetric_renderer_tpu.core.fused import make_fused_marcher
-from volumetric_renderer_tpu.core.marcher import march_rays, render_oracle
-from volumetric_renderer_tpu.data.volume import Volume
-from volumetric_renderer_tpu.render.api import render
-from volumetric_renderer_tpu.scene.camera import OrbitCamera, ray_grid
-from volumetric_renderer_tpu.transfer.gradient import Gradient
-from volumetric_renderer_tpu.utils.config import RenderSettings
+from volumetric_renderer.core.fused import make_fused_marcher
+from volumetric_renderer.core.marcher import march_rays, render_oracle
+from volumetric_renderer.data.volume import Volume
+from volumetric_renderer.render.api import render
+from volumetric_renderer.scene.camera import OrbitCamera, ray_grid
+from volumetric_renderer.transfer.gradient import Gradient
+from volumetric_renderer.utils.config import RenderSettings
 
 
 def small_scene(n=12, h=12, w=16, tf_n=32):
@@ -138,7 +138,7 @@ def test_axis_parallel_miss_ray_grads_finite():
     can cast in-bounds).  Regression for the cyclic-layout pad rays."""
     import jax
 
-    from volumetric_renderer_tpu.data.volume import Volume
+    from volumetric_renderer.data.volume import Volume
 
     vol = Volume.synthetic_sphere(8).as_jax()
     tf = jnp.asarray(np.linspace(0, 1, 32 * 4, dtype=np.float32)

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from volumetric_renderer_tpu import models, ops
+from volumetric_renderer import models, ops
 
 
 def test_sphere_and_shells():

@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests.reference_marcher import RefCamera, ref_render, sample3d_border
+from reference_marcher import RefCamera, ref_render, sample3d_border
 
-from volumetric_renderer_tpu.core.marcher import render_oracle
-from volumetric_renderer_tpu.core.sampling import ray_box_intersect, trilinear_sample
-from volumetric_renderer_tpu.data.volume import Volume
-from volumetric_renderer_tpu.scene.camera import OrbitCamera
-from volumetric_renderer_tpu.transfer.gradient import Gradient
-from volumetric_renderer_tpu.utils.config import RenderSettings
+from volumetric_renderer.core.marcher import render_oracle
+from volumetric_renderer.core.sampling import ray_box_intersect, trilinear_sample
+from volumetric_renderer.data.volume import Volume
+from volumetric_renderer.scene.camera import OrbitCamera
+from volumetric_renderer.transfer.gradient import Gradient
+from volumetric_renderer.utils.config import RenderSettings
 
 
 def make_scene(n=16, drags=((40.0, 25.0),), radius=3.0):

@@ -18,14 +18,14 @@ import numpy as np
 import optax
 import pytest
 
-from volumetric_renderer_tpu.core.fused import make_fused_marcher
-from volumetric_renderer_tpu.data.volume import Volume
-from volumetric_renderer_tpu.parallel.mesh import make_mesh
-from volumetric_renderer_tpu.parallel.render import make_sharded_renderer
-from volumetric_renderer_tpu.parallel.train import init_state, make_train_step
-from volumetric_renderer_tpu.scene.camera import OrbitCamera, ray_grid
-from volumetric_renderer_tpu.transfer.gradient import Gradient
-from volumetric_renderer_tpu.utils.config import RenderSettings
+from volumetric_renderer.core.fused import make_fused_marcher
+from volumetric_renderer.data.volume import Volume
+from volumetric_renderer.parallel.mesh import make_mesh
+from volumetric_renderer.parallel.render import make_sharded_renderer
+from volumetric_renderer.parallel.train import init_state, make_train_step
+from volumetric_renderer.scene.camera import OrbitCamera, ray_grid
+from volumetric_renderer.transfer.gradient import Gradient
+from volumetric_renderer.utils.config import RenderSettings
 
 
 SETTINGS = RenderSettings(height=24, width=16, step_size=0.05,
@@ -122,9 +122,9 @@ def test_forward_has_no_collectives_backward_psums():
     """The scaling-efficiency design invariant, asserted at the HLO level
     (deterministic, unlike wall-clock scaling on a shared-core host):
     the sharded *forward* compiles to zero cross-device collectives —
-    every chip marches its own pixel rows — and the *backward* contains
-    exactly the grid/TF gradient all-reduce (the psum over ICI from the
-    north-star design, ``core/fused.py`` march_bwd)."""
+    every card marches its own pixel rows — and the *backward* contains
+    exactly the grid/TF gradient all-reduce (``core/fused.py``
+    march_bwd)."""
     mesh = make_mesh(jax.devices()[:8])
     vol, tf, cam, fixed = scene()
     render_fn = make_sharded_renderer(mesh, SETTINGS)
@@ -152,25 +152,20 @@ SLAB_SETTINGS = RenderSettings(height=24, width=16, step_size=0.05,
                                early_termination=False, tf_resolution=32)
 
 
-def slab_args(cam):
-    from volumetric_renderer_tpu.kernels.slab import choose_axis_from_camera
-
-    axis, reverse = choose_axis_from_camera(cam)
-    return dict(vol_shape=(12, 12, 12), slab_axis=axis,
-                slab_reverse=reverse, interpret=True)
+KERNEL = dict(method="march", interpret=True)
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "cyclic", "tile-cyclic",
                                     "tile-shuffle"])
 def test_sharded_slab_forward_matches_unsharded(layout):
-    """The PRODUCTION kernel under the mesh (BASELINE config 5 path):
-    slab Pallas forward per shard, both row layouts, vs the unsharded
-    fused reference."""
+    """The GPU production kernel under the mesh (BASELINE config 5 path):
+    the ray-march kernel (interpreted here) per shard, every pixel
+    layout, vs the unsharded fused reference."""
     mesh = make_mesh(jax.devices()[:8])
     vol, tf, cam, fixed = scene()
     want = unsharded_render(vol, tf, cam, fixed, settings=SLAB_SETTINGS)
-    render_fn = make_sharded_renderer(mesh, SLAB_SETTINGS, method="slab",
-                                      row_layout=layout, **slab_args(cam))
+    render_fn = make_sharded_renderer(mesh, SLAB_SETTINGS,
+                                      row_layout=layout, **KERNEL)
     got = render_fn(vol, tf, cam, fixed["dmin"], fixed["dmax"],
                     fixed["smin"], fixed["smax"])
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-4)
@@ -178,12 +173,11 @@ def test_sharded_slab_forward_matches_unsharded(layout):
 
 @pytest.mark.slow
 def test_sharded_slab_grads_match_unsharded():
-    """Grid/TF gradients through the Pallas slab backward + the vary_axes
-    psum (kernels/slab.py) == unsharded fused grads."""
+    """Grid/TF gradients through the kernel backward + shard_map's
+    replicated-input psum == unsharded fused grads."""
     mesh = make_mesh(jax.devices()[:8])
     vol, tf, cam, fixed = scene()
-    render_fn = make_sharded_renderer(mesh, SLAB_SETTINGS, method="slab",
-                                      **slab_args(cam))
+    render_fn = make_sharded_renderer(mesh, SLAB_SETTINGS, **KERNEL)
 
     def loss_sharded(vol, tf):
         img = render_fn(vol, tf, cam, fixed["dmin"], fixed["dmax"],
@@ -204,22 +198,22 @@ def test_sharded_slab_grads_match_unsharded():
 
 @pytest.mark.slow
 def test_sharded_slab_hlo_audit():
-    """Config-5 invariant on the PRODUCTION path: slab forward compiles to
-    zero collectives (cyclic layout with shard-order output — the training
-    configuration), backward carries the grid/TF all-reduce."""
+    """Config-5 invariant on the GPU production path: the kernel forward
+    compiles to zero collectives (cyclic layout with shard-order output —
+    the training configuration), backward carries the grid/TF
+    all-reduce."""
     mesh = make_mesh(jax.devices()[:8])
     vol, tf, cam, fixed = scene()
-    render_fn = make_sharded_renderer(mesh, SLAB_SETTINGS, method="slab",
+    render_fn = make_sharded_renderer(mesh, SLAB_SETTINGS,
                                       row_layout="cyclic",
-                                      permuted_output=True,
-                                      **slab_args(cam))
+                                      permuted_output=True, **KERNEL)
     collectives = ("all-reduce", "all-gather", "reduce-scatter",
                    "collective-permute", "all-to-all")
     fwd_hlo = render_fn.lower(
         vol, tf, cam, fixed["dmin"], fixed["dmax"], fixed["smin"],
         fixed["smax"]).compile().as_text()
     found = [c for c in collectives if c in fwd_hlo]
-    assert not found, f"slab forward should be communication-free: {found}"
+    assert not found, f"kernel forward should be communication-free: {found}"
 
     def loss(vol, tf):
         img = render_fn(vol, tf, cam, fixed["dmin"], fixed["dmax"],
@@ -228,7 +222,7 @@ def test_sharded_slab_hlo_audit():
 
     bwd_hlo = jax.jit(jax.grad(loss, argnums=(0, 1))).lower(
         vol, tf).compile().as_text()
-    assert "all-reduce" in bwd_hlo, "slab grid/TF gradient psum missing"
+    assert "all-reduce" in bwd_hlo, "kernel grid/TF gradient psum missing"
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "cyclic", "tile-cyclic",
@@ -237,7 +231,7 @@ def test_sharded_slab_hlo_audit():
 def test_make_layout_roundtrip(layout, hw):
     """pack -> unpack is the identity on any (H, W, C); valid marks
     exactly the true pixels (pack of ones == valid)."""
-    from volumetric_renderer_tpu.parallel.mesh import make_layout
+    from volumetric_renderer.parallel.mesh import make_layout
 
     h, w = hw
     for n in (3, 8):
@@ -259,7 +253,7 @@ def test_cyclic_row_layout_properties():
     """Block-cyclic layout: a true permutation, 16-row blocks intact,
     device d owns blocks d, d+n, d+2n, ... (the load-balance contract
     used by the scaling artifact)."""
-    from volumetric_renderer_tpu.parallel.mesh import cyclic_row_layout
+    from volumetric_renderer.parallel.mesh import cyclic_row_layout
 
     for h, n in [(1080, 8), (24, 8), (128, 4), (48, 3)]:
         hp, perm, inv = cyclic_row_layout(h, n)
@@ -280,25 +274,20 @@ def test_cyclic_row_layout_properties():
 
 @pytest.mark.slow
 def test_train_step_slab_method_decreases_loss():
-    """Config 3/4 through the PRODUCTION kernel: sharded slab fwd + Pallas
-    slab bwd + per-view orientation switch + cyclic layout."""
-    from volumetric_renderer_tpu.parallel.train import slab_axes_for_cameras
-
+    """Config 3/4 through the GPU production kernel (interpreted): sharded
+    kernel forward + kernel backward + tile-cyclic layout, two views
+    looking along different volume axes."""
     mesh = make_mesh(jax.devices()[:8])
     settings = RenderSettings(height=16, width=16, step_size=0.1,
                               early_termination=False, tf_resolution=32)
     vol_gt, tf, _, fixed_win = scene(n=8)
 
-    # yaw 0 vs 90 look along different volume axes: exercises the
-    # lax.switch over per-orientation kernels
     cams = [OrbitCamera.from_angles(yaw_deg=a, pitch_deg=15.0)
             for a in (0.0, 90.0)]
     cameras = jax.tree.map(lambda *xs: jnp.stack(xs), *cams)
-    codes, axes = slab_axes_for_cameras(cams)
-    assert len(axes) == 2, axes
 
     render_fn = make_sharded_renderer(mesh, settings)
-    fixed = dict(vol=vol_gt, tf=tf, axis_codes=codes, **fixed_win)
+    fixed = dict(vol=vol_gt, tf=tf, **fixed_win)
     targets = jnp.stack([
         render_fn(vol_gt, tf, c, fixed["dmin"], fixed["dmax"],
                   fixed["smin"], fixed["smax"]) for c in cams])
@@ -306,9 +295,7 @@ def test_train_step_slab_method_decreases_loss():
     optimizer = optax.adam(5e-2)
     step_fn = make_train_step(mesh, settings, optimizer,
                               optimize_vol=True, optimize_tf=False,
-                              method="slab", vol_shape=vol_gt.shape,
-                              slab_axes=axes, interpret=True,
-                              row_layout="tile-cyclic")
+                              row_layout="tile-cyclic", **KERNEL)
     state = init_state(optimizer, dict(vol=jnp.full_like(vol_gt, 0.3)))
     losses = []
     for _ in range(6):
@@ -319,7 +306,7 @@ def test_train_step_slab_method_decreases_loss():
 
 def test_local_batch_bounds_partition(monkeypatch):
     """Host row ranges must tile [0, total) without gaps or overlap."""
-    from volumetric_renderer_tpu.parallel import distributed
+    from volumetric_renderer.parallel import distributed
 
     for n_hosts, total in [(1, 10), (3, 10), (4, 16), (5, 7)]:
         ranges = []
@@ -333,8 +320,8 @@ def test_local_batch_bounds_partition(monkeypatch):
 
 def test_pod_mesh_shape(monkeypatch):
     """pod_mesh reshapes global devices to (hosts, chips-per-host)."""
-    from volumetric_renderer_tpu.parallel import distributed
-    from volumetric_renderer_tpu.parallel.mesh import HOST_AXIS, TILE_AXIS
+    from volumetric_renderer.parallel import distributed
+    from volumetric_renderer.parallel.mesh import HOST_AXIS, TILE_AXIS
 
     for n_hosts in (1, 2, 4):
         monkeypatch.setattr(jax, "process_count", lambda: n_hosts)
@@ -346,7 +333,7 @@ def test_pod_mesh_shape(monkeypatch):
 
 
 def test_init_distributed_single_process_noop():
-    from volumetric_renderer_tpu.parallel.distributed import init_distributed
+    from volumetric_renderer.parallel.distributed import init_distributed
 
     init_distributed()  # no cluster env: must not raise
     assert jax.process_count() >= 1
@@ -355,7 +342,7 @@ def test_init_distributed_single_process_noop():
 def test_two_process_cluster_psum():
     """REAL multi-process JAX: spawn a 2-process gloo cluster (2 virtual
     CPU devices each), build pod_mesh over the 4 global devices, and psum
-    across the process (DCN) boundary — the collective multi-host grid/TF
+    across the process boundary — the collective multi-host grid/TF
     gradient reduction rides.  Subprocess-based: jax.distributed can only
     initialize once per process."""
     import json

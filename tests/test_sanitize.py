@@ -7,17 +7,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from volumetric_renderer_tpu.data.volume import Volume
-from volumetric_renderer_tpu.render.api import render
-from volumetric_renderer_tpu.scene.camera import OrbitCamera
-from volumetric_renderer_tpu.transfer.gradient import Gradient
-from volumetric_renderer_tpu.utils.color import (
+from volumetric_renderer.data.volume import Volume
+from volumetric_renderer.render.api import render
+from volumetric_renderer.scene.camera import OrbitCamera
+from volumetric_renderer.transfer.gradient import Gradient
+from volumetric_renderer.utils.color import (
     linear_to_srgb,
     linearize_tf_table,
     srgb_to_linear,
 )
-from volumetric_renderer_tpu.utils.config import RenderSettings
-from volumetric_renderer_tpu.utils.sanitize import (
+from volumetric_renderer.utils.config import RenderSettings
+from volumetric_renderer.utils.sanitize import (
     assert_deterministic,
     checked_render,
 )
@@ -56,7 +56,7 @@ def test_checked_render_traps_nan_volume(scene):
 def test_checked_render_rejects_pallas(scene):
     vol, tf, cam = scene
     with pytest.raises(ValueError, match="XLA paths"):
-        checked_render(vol, tf, cam, SETTINGS, method="slab")
+        checked_render(vol, tf, cam, SETTINGS, method="march")
 
 
 def test_nan_voxels_masked_by_slicing(scene):

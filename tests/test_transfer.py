@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests.reference_marcher import sample1d_edge
+from reference_marcher import sample1d_edge
 
-from volumetric_renderer_tpu.transfer.gradient import Gradient
-from volumetric_renderer_tpu.transfer.texture import sample_tf
-from volumetric_renderer_tpu.utils.color import pack_rgba8, unpack_rgba8
+from volumetric_renderer.transfer.gradient import Gradient
+from volumetric_renderer.transfer.texture import sample_tf
+from volumetric_renderer.utils.color import pack_rgba8, unpack_rgba8
 
 
 def test_default_gradient_black_to_white():
